@@ -4,7 +4,7 @@
 config banner, solver build, the same default coefficient/source fields
 (main.cpp:29-46), phase-timed setup, warm start from result.csv
 (main.cpp:138-140), GMRES solve, and points.csv/result.csv output
-(main.cpp:143-146) — all on the TPU-native solver.
+(main.cpp:143-146) — all on the JAX solver.
 
 Extra subcommands the reference lacks:
   `aniso-tpu info`        — device/mesh report
@@ -56,6 +56,9 @@ def cmd_run(args) -> int:
         # device set (SURVEY section 7 stage 6)
         from .parallel.distributed import init as dist_init
         dist_init(args.coordinator, args.num_processes, args.process_id)
+    from .utils.compile_cache import setup_compile_cache
+
+    setup_compile_cache()
 
     cfg = load_cfg(args.config)
     if args.dtype:
@@ -189,7 +192,7 @@ def main(argv=None) -> int:
     )
     run.add_argument(
         "--distributed", action="store_true",
-        help="initialize jax.distributed (multi-host pod slice)",
+        help="initialize jax.distributed (one process per GPU host)",
     )
     run.add_argument("--coordinator", default=None,
                      help="coordinator host:port (multi-host)")

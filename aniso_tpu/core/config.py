@@ -36,17 +36,16 @@ class SolverConfig:
     # numerics
     dtype: str = "float64"        # float32 | float64
     # mixed-precision iterative refinement (solver.refine): f32 inner GMRES
-    # on the MXU + f64 outer residuals; reaches the reference's 1e-12 target
-    # on hardware whose fast path is f32.  Requires dtype=float32 and
-    # jax_enable_x64.
+    # + f64 outer residuals; reaches the reference's 1e-12 target with an
+    # f32 fast path.  Requires dtype=float32 and jax_enable_x64.
     refine: bool = False
     # where the f64 twin operator for refinement residuals lives:
-    #   device -- f64 caches in accelerator HBM, residual matvecs run as
-    #             XLA f64 emulation (~20x a f32 matvec; a solve needs only
-    #             2-4 of them).  No host round-trips in the refine loop.
-    #   host   -- numpy/BLAS-built caches on the host CPU backend (the
-    #             round-2 design, kept as the oracle; minutes per residual
-    #             at 512^2 on small hosts).
+    #   device -- f64 caches in device memory; the residual matvecs (2-4
+    #             per solve) run there.  No host round-trips in the
+    #             refine loop.
+    #   host   -- numpy/BLAS-built caches on the host CPU backend (kept as
+    #             the oracle; minutes per residual at 512^2 on small
+    #             hosts).
     refine_twin: str = "device"
     # reference-compat: evaluate per-square Legendre expansions at *global*
     # coordinates like the reference does (KernelFactory.cpp:174-207,

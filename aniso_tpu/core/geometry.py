@@ -1,6 +1,6 @@
 """Grid geometry and interpolation operators for the unit square.
 
-TPU-native analogue of reference Geometry.{h,cpp}: the unit square is split
+Analogue of reference Geometry.{h,cpp}: the unit square is split
 into sz x sz sub-squares, each carrying a deg x deg tensor Gauss-Legendre
 rule.  Where the reference stores flat per-node `std::vector<point>` arrays
 and rebuilds interpolation matrices with scalar loops, we store everything as

@@ -2,7 +2,7 @@
 
 Replaces the reference's use of `std::tr1::legendre` plus per-point scalar
 loops (reference Geometry.cpp:129-154, KernelFactory.cpp:174-207) with
-vectorized recurrences that map onto the TPU VPU.
+vectorized recurrences that XLA fuses into elementwise work.
 
 The 2D basis on a square is B_{nk}(x, y) = P_n(x) P_k(y) with the flat index
 nm = n * deg + k.  The "normalized" basis divides by the quadrature-measured
@@ -33,7 +33,7 @@ def legendre_all(deg: int, x: jnp.ndarray) -> jnp.ndarray:
     """P_0..P_{deg-1} at x (jax). Returns shape (deg,) + x.shape.
 
     deg is static and small so the recurrence unrolls into a short chain of
-    fused VPU multiply-adds under jit.
+    fused multiply-adds under jit.
     """
     outs = [jnp.ones_like(x)]
     if deg > 1:

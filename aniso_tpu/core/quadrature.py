@@ -1,6 +1,6 @@
 """Gauss-Legendre quadrature rules.
 
-TPU-native replacement for the reference's 22k-line generated table
+Replacement for the reference's 22k-line generated table
 (/root/reference/Quadrature.cpp:5418 `get_legendre_data`): rules are generated
 at import time to full float64 accuracy by Newton iteration on the Legendre
 polynomial, for any degree (the reference supports 1..128 via hard-coded

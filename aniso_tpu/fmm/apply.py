@@ -33,12 +33,13 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..core.geometry import Grid
+from ..ops.stencil import patches_3x3
 from .cheb import cheb_grid_2d, m2m_tensor, p2m_matrix
 
-# TPU f32 matmuls default to bf16 multiplies; every contraction here is
-# accuracy-critical (the operator itself), so pin full-f32 (6-pass) MXU
-# arithmetic.  Measured: without this, a chip GMRES solve converges by its
-# internal estimate while the true residual stalls at ~1e-2.
+# Every contraction here is accuracy-critical (the operator itself), so
+# each pins true f32 products: the default precision may run an f32
+# matmul in reduced precision (TF32 on an NVIDIA GPU), and a GMRES solve
+# then converges by its internal estimate while the true residual stalls.
 HIGHEST = jax.lax.Precision.HIGHEST
 from .structure import TreeConfig, coarsest_m2l_level, vlist_offsets
 
@@ -195,17 +196,13 @@ def _vlist_gather(M_l: jnp.ndarray):
 
 
 # cap on the materialized re-formed-E transient per parity class in the
-# FACTORED path; rows are processed in lax.map chunks beyond it.  256 MB:
-# XLA keeps ~3 such temps live inside a GMRES-loop matvec, and the 512^2
-# solve program budget is tight (measured 16.4 of 15.75 GB at 512 MB).
+# FACTORED path; rows are processed in lax.map chunks beyond it (XLA keeps
+# a few such temps live inside a GMRES-loop matvec).
 #
-# DENSE levels are NEVER chunked (round-4 chip experiments, 256^2/512^2):
-# the dynamic_slice chunk consumption makes XLA layout assignment re-lay
-# every dense E argument into a full-size {1,2,0} program temp (9.9 GB of
-# copies at 512^2 -> compile OOM) AND runs 2x slower where it fits
-# (11.2 ms vs 5.8 ms at 256^2).  Consumed whole, the elementwise
-# exp(-E)*cosr producer reads the argument in its native layout (no
-# re-lay) and the per-class split bounds the fused-operator transient to
+# DENSE levels are never chunked: a dynamic_slice chunk consumption can
+# make XLA re-lay every dense E argument into a full-size program temp.
+# Consumed whole, the elementwise exp(-E)*cosr producer reads the argument
+# in place and the per-class split bounds the fused-operator transient to
 # a quarter level.
 import os as _os_caps
 
@@ -213,18 +210,6 @@ _M2L_TRANSIENT_CAP_BYTES = (
     int(_os_caps.environ.get("ANISO_M2L_TRANSIENT_CAP_MB", 256))
     * 1024 * 1024
 )
-
-# (The round-3 Pallas translate kernels -- fmm.pallas_m2l, behind
-# ANISO_PALLAS_M2L -- were RETIRED in round 5.  Chip record, kept in
-# benchmarks/results_pallas_512.json: correct on hardware at <= 256^2
-# but slower than XLA everywhere (256^2 all-dense 7.6 ms XLA vs ~31 ms
-# Pallas), and Mosaic failed to legalize the 512^2 factored shapes.
-# The round-5 per-offset translate (_m2l_translate_offsets) then removed
-# the factored leaf from every single-device critical path, leaving the
-# kernels no job: the factored patch@W form survives only as the
-# GSPMD-sharded fallback, where the single-device Pallas kernels never
-# applied.  The round-3 ANISO_M2L_DENSE_FUSED dense variant was retired
-# in round 4 for forcing padded argument copies of flat-P views.)
 
 
 def _interleave_classes(outs, m2, r):
@@ -241,8 +226,8 @@ def _row_chunk(m2, P, itemsize, n_shards=1):
     """Rows per streamed chunk so the materialized transient stays bounded.
 
     n_shards > 1 disables chunking entirely: a dynamic_slice along a
-    GSPMD-sharded axis forces an all-gather of the operand (round-3
-    VERDICT item 2 -- 2.75 GB/shard re-gathered at 1024^2), while the
+    GSPMD-sharded axis forces an all-gather of the operand (2.75 GB/shard
+    re-gathered at 1024^2 on the virtual CPU mesh), while the
     partitioner already bounds every per-device transient to 1/n_shards
     of the global footprint.  Under a mesh, locality comes from the
     sharding itself, never from host-chosen chunks."""
@@ -262,12 +247,10 @@ def _loop_variant_zero(u):
     before the re-form matmul), it defeats loop-invariant code motion:
     inside a GMRES while-loop or a chained scan, exp(-E) of the
     loop-invariant cache is otherwise HOISTED and materialized -- a
-    second full-size padded copy of every dense level (measured 12.7 GB
-    of negate_exponential remat temps at 512^2 -> compile OOM).
-    Recomputing exp per apply costs ~1 elem/cycle/lane on the VPU's
-    transcendental unit -- ~2.7 ms per 2.6 G elements, a fraction of the
-    HBM stream it rides on.  The clip guards a hypothetical +-inf
-    iterate (0 * inf = NaN would poison the operator)."""
+    second full-size copy of every dense level.  Recomputing exp per
+    apply rides on the stream of E it is fused with.  The clip guards a
+    hypothetical +-inf iterate (0 * inf = NaN would poison the
+    operator)."""
     # static corner index, not reshape(-1)[0]: flattening a GSPMD-sharded
     # field re-gathers it; the corner slice costs one scalar broadcast
     anchor = jnp.clip(u[(0,) * u.ndim], -1.0, 1.0)
@@ -279,17 +262,15 @@ def _m2l_translate(E_l, cosr_l, gsel, n_shards=1, z=0.0):
 
     E_l: dense (4, m2, m2, r*27*r) with pair axis (a, o, b) -- stacked
     (coarse levels) or a per-class tuple of 4 (m2, m2, P) blocks (fine
-    levels; blocked so no single array crosses the XLA layout-copy
-    threshold, fmm.smooth.build_m2l_E_fine) -- or the factored
+    levels, fmm.smooth.build_m2l_E_fine) -- or the factored
     {'patch': (4, m2, m2, Q), 'W': (4, Q, P)} form (fmm.smooth.
     build_m2l_patch_fine), in which case each streamed chunk first re-forms
-    its E rows as one (chunk*m2, Q) @ (Q, P) MXU matmul.  cosr_l:
+    its E rows as one (chunk*m2, Q) @ (Q, P) matmul.  cosr_l:
     (4, r*27*r); gsel: (4, m2, m2, 27*r) from _vlist_gather.  The fused
     far-field operator exp(-E) cos/r is formed on the fly (fused
     elementwise on the cache read) and contracted as one batched
-    (r x 27r) @ (27r,) matvec per box per parity class -- all tensors keep
-    their large dims minor-most so nothing pads in HBM.  Large levels
-    stream in row chunks to bound the transient.
+    (r x 27r) @ (27r,) matvec per box per parity class.  Large factored
+    levels stream in row chunks to bound the transient.
     """
     factored = isinstance(E_l, dict)
     if factored and "Wo" in E_l:
@@ -299,81 +280,38 @@ def _m2l_translate(E_l, cosr_l, gsel, n_shards=1, z=0.0):
         m2, P = patch.shape[1], W.shape[-1]
         itemsize = patch.dtype.itemsize
     else:
-        # dense: E_l[c] is per-class -- y-minor 4D (m2, r, 27r, m2) for
-        # lane-aligned m2, flat 3D (m2, m2, P) otherwise (fmm.smooth.
-        # build_m2l_E_fine) -- or a stacked (4, m2, m2, P) flat-P array
+        # dense: E_l[c] is per-class (m2, m2, r, 27r) (fmm.smooth.
+        # build_m2l_E_fine) or a slice of a stacked (4, m2, m2, P) array
         # (coarse levels and the numpy host twin)
         E0 = E_l[0]
         m2 = gsel.shape[1]
-        if E0.ndim == 4:
-            P = (E0.shape[1] * E0.shape[2]) if E0.shape[-1] == E0.shape[0] \
-                else (E0.shape[2] * E0.shape[3])
-        else:                              # flat (m2, m2, P)
-            P = E0.shape[-1]
+        P = E0.shape[-1] * (E0.shape[-2] if E0.ndim == 4 else 1)
         itemsize = E0.dtype.itemsize
     ob = gsel.shape[-1]
     r = P // ob
 
     if not factored:
         # DENSE: one fully-fused exp * cosr * gather multiply-reduce per
-        # class over the lane axis -- E is read in place, nothing else
-        # is materialized (the output is the (m2, m2, r) locals).
-        #
-        # Why storage must be 4D-at-rest (round-4 chip forensics): every
-        # flat-P formulation has to view E as (..., r, ob) at apply time,
-        # and ob = 27r (432 for np_cheb 4) is not 128-lane aligned, so
-        # that view can never be a bitcast -- XLA materializes padded
-        # COPIES of the whole operand (12 GB of program temps at 512^2,
-        # compile OOM), or per chunk runs them inside the loop (11.2 ms
-        # vs 5.8 ms at 256^2).  Per-a minor-axis slices avoid the view
-        # but their einsum form is a dot_general that cannot fuse its
-        # producers (64 x 113 MB stripe temps -> OOM) and their sliced
-        # offsets are themselves unaligned (per-stripe copies).  Stored
-        # (m2, m2, r, 27r), the lane padding is paid once at rest
-        # (+18.5% HBM) and the apply is copy-free.
-        #
-        # The reduce is an explicit jnp.sum, NOT an einsum: einsum
-        # lowers to dot_general, which cannot loop-fuse the elementwise
-        # producers.  Accuracy: VPU elementwise multiplies are full f32
-        # (the HIGHEST concern is bf16 MXU multiplies, which don't apply)
-        # and the 432-term f32 reduce error ~sqrt(432)*eps matches the
-        # dot form's f32 accumulator.
-        # per-class flat (m2, m2, P) fine levels (smooth._small_dense_flat)
-        # take the round-3 DOT form: exp * cosr on the flat lane axis
-        # (P = r*27r is 128-aligned, zero padding), the (.., r, ob) view
-        # lands on the fresh `op` transient (not the stored cache), and
-        # the contraction is a dot_general
-        flat_dot = isinstance(E_l, (tuple, list)) and E_l[0].ndim == 3
+        # class over the pair axis -- E is read in place and nothing else
+        # is materialized (the output is the (m2, m2, r) locals).  The
+        # reduce is an explicit jnp.sum, NOT an einsum: einsum lowers to
+        # dot_general, which cannot fuse its elementwise producers.  The
+        # multiplies are elementwise f32 and the 27r-term f32 sum matches
+        # a dot's f32 accumulator.  z: loop-variant zero keeps exp
+        # un-hoisted.
         outs = []
         for c in range(4):
             E4 = E_l[c]
-            cos4 = cosr_l[c].reshape(r, ob)
-            if flat_dot:
-                op = (jnp.exp(-(E4 + z)) * cosr_l[c]).reshape(
-                    m2, m2, r, ob
-                )
-                outs.append(jnp.einsum(
-                    "xyaq,xyq->xya", op, gsel[c], precision=HIGHEST
-                ))
-                continue
-            if E4.ndim == 4 and E4.shape[-1] == E4.shape[0]:
-                # y-minor orientation (m2, r, ob, m2): reduce over ob
-                # (dim 2); gather stack transposed to (m2, ob, m2).
-                # z: loop-variant zero keeps exp un-hoisted
-                gt = jnp.transpose(gsel[c], (0, 2, 1))
-                op = jnp.exp(-(E4 + z)) * cos4[None, :, :, None] \
-                    * gt[:, None, :, :]
-                outs.append(jnp.transpose(jnp.sum(op, axis=2), (0, 2, 1)))
-                continue
             if E4.ndim == 3:      # stacked coarse / host-twin flat form
                 E4 = E4.reshape(m2, m2, r, ob)
-            op = jnp.exp(-(E4 + z)) * cos4 * gsel[c][:, :, None, :]
+            op = jnp.exp(-(E4 + z)) * cosr_l[c].reshape(r, ob) \
+                * gsel[c][:, :, None, :]
             outs.append(jnp.sum(op, axis=-1))
         return _interleave_classes(outs, m2, r)
 
-    # FACTORED: re-form E row chunks on the MXU, bounded by the transient
+    # FACTORED: re-form E row chunks by matmul, bounded by the transient
     # cap (the re-formed chunk is a fresh temp, so its (rows, m2, r, ob)
-    # view is laid padded at birth -- no argument copies here).
+    # view needs no argument copy).
     chunk = _row_chunk(m2, P, itemsize, n_shards)
 
     def one_chunk(c, Eb, gb):
@@ -552,22 +490,13 @@ def _down_pass(static, leaf_level: int, M, m2l_E, m2l_cosr, coeffs=None,
 
 
 def _patch_3x3(u: jnp.ndarray) -> jnp.ndarray:
-    """(sz, sz, q) -> (q, 3, 3, sz, sz) zero-padded neighbour windows
-    (one im2col instead of 9 shifted slices)."""
-    q = u.shape[-1]
-    inp = u.transpose(2, 0, 1)[None]
-    patches = jax.lax.conv_general_dilated_patches(
-        inp, filter_shape=(3, 3), window_strides=(1, 1),
-        padding=((1, 1), (1, 1)),
-        precision=HIGHEST,
-    )  # (1, q*9, sz, sz)
-    return patches[0].reshape(q, 3, 3, u.shape[0], u.shape[1])
+    """(sz, sz, q) -> (q, 3, 3, sz, sz) zero-padded neighbour windows."""
+    return patches_3x3(jnp.pad(u, ((1, 1), (1, 1), (0, 0))))
 
 
 # bound on the materialized near-E temp in the virtual (re-formed)
-# representation; beyond it the apply streams row blocks.  The unchunked
-# f64 form at 512^2 needed a 5.7 GB temp that XLA remat-copied to 17.9 GB
-# -- a compile-time HBM overflow (measured round 3).
+# representation; beyond it the apply streams row blocks (the unchunked
+# f64 form at 512^2 needs a 5.7 GB temp, which XLA may copy again).
 _NEAR_VIRTUAL_CHUNK_CAP_BYTES = (
     int(_os_caps.environ.get("ANISO_NEAR_CHUNK_CAP_MB", 256))
     * 1024 * 1024
@@ -608,7 +537,7 @@ def _near_apply_chunked(caches, mode_static, u, rows, virtual, z=0.0):
             # the slice carries its own halo: patches via VALID conv
             # (re-padding through _near_E_einsum would zero the halo)
             cb = jax.lax.dynamic_slice_in_dim(pad_c, i0, rows + 2, axis=0)
-            cpatch = _patch_3x3_padded(cb, nq)     # (q, 3, 3, rows, sz)
+            cpatch = patches_3x3(cb)     # (q, 3, 3, rows, sz)
             E = jnp.einsum(
                 "abtscdq,qcdij->abtsij", W, cpatch, precision=HIGHEST
             )
@@ -617,23 +546,11 @@ def _near_apply_chunked(caches, mode_static, u, rows, virtual, z=0.0):
                 caches["near_E"], i0, rows, axis=4
             )
         ub = jax.lax.dynamic_slice_in_dim(pad_u, i0, rows + 2, axis=0)
-        up = _patch_3x3_padded(ub, nq)
+        up = patches_3x3(ub)
         return _near_block_contract(E, mode_static, up, z)
 
     out = jax.lax.map(one, jnp.arange(nb))
     return out.reshape(sz, sz, nq)
-
-
-def _patch_3x3_padded(u_pad: jnp.ndarray, q: int) -> jnp.ndarray:
-    """(rows+2, sz+2, q) pre-padded -> (q, 3, 3, rows, sz) windows."""
-    inp = u_pad.transpose(2, 0, 1)[None]
-    patches = jax.lax.conv_general_dilated_patches(
-        inp, filter_shape=(3, 3), window_strides=(1, 1),
-        padding="VALID", precision=HIGHEST,
-    )  # (1, q*9, rows, sz)
-    return patches[0].reshape(
-        q, 3, 3, u_pad.shape[0] - 2, u_pad.shape[1] - 2
-    )
 
 
 def _near_apply(caches, mode_static, mode: int, u: jnp.ndarray,
@@ -721,12 +638,10 @@ def fmm_apply_all_modes(leaf_level, static, caches, mode_statics, u,
     pair; here all modes of one charge ride one compiled sweep).
 
     The per-mode locals are carried as a python list, never stacked into
-    one (D, m, m, r) array: any r-minor stack at 512^2 scale lays out
-    with the 16-lane dim padded 8x (a (9, 512, 512, 16) leaf stack is a
-    1.12 GB dynamic-update-slice temp for 144 MB of payload -- measured
-    compile OOM of the N=5 512^2 multi-mode forward), and the stacked
-    carry keeps every mode's locals live through every level.  As a
-    list, each mode's L2L/add chain schedules independently.
+    one (D, m, m, r) array: a stacked carry keeps every mode's locals
+    live through every level (and its dynamic-update-slice makes a
+    full-size temp).  As a list, each mode's L2L/add chain schedules
+    independently.
     """
     z = _loop_variant_zero(u)
     M = _up_pass(static, leaf_level, u)

@@ -36,7 +36,16 @@ def _build() -> bool:
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, timeout=120,
         )
         return os.path.exists(_LIB_PATH)
-    except Exception:
+    except subprocess.CalledProcessError as e:
+        from ..utils.logging import log
+
+        log.warning(f"native host engine did not build: "
+                    f"{e.stderr.decode(errors='replace')[-500:]}")
+        return False
+    except (OSError, subprocess.TimeoutExpired) as e:
+        from ..utils.logging import log
+
+        log.warning(f"native host engine did not build: {e}")
         return False
 
 

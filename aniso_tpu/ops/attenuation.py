@@ -15,7 +15,7 @@ poison for XLA.  Here the same *exact* quadrature is recast branch-free:
      <= 2(deg-1) in t).
 
 Everything is a fixed-shape tensor program: vmap over point pairs, gathers
-for the per-cell coefficients, fused VPU polynomial evaluation.
+for the per-cell coefficients, fused elementwise polynomial evaluation.
 
 `compat_global_basis` replicates a reference quirk: the per-square expansion
 coefficients are computed against the basis at *local* [-1,1] coordinates
@@ -35,6 +35,8 @@ import numpy as np
 
 from ..core.geometry import Grid
 from ..core.legendre import legendre_all
+
+HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def make_sigma_eval(grid: Grid, compat_global_basis: bool = False):
@@ -59,7 +61,7 @@ def make_sigma_eval(grid: Grid, compat_global_basis: bool = False):
         basis = (px[:, None] * py[None, :]).reshape((deg * deg,) + x.shape)
         basis = basis / norms.reshape((deg * deg,) + (1,) * x.ndim)
         c = coeffs.reshape(sz * sz, deg * deg)[i * sz + j]  # (..., deg^2)
-        return jnp.einsum("q...,...q->...", basis, c)
+        return jnp.einsum("q...,...q->...", basis, c, precision=HIGHEST)
 
     return sigma_eval
 
@@ -70,8 +72,8 @@ def _crossings(a0: jnp.ndarray, a1: jnp.ndarray, sz: int, kmax: int):
     a0, a1: scalars (one coordinate of the endpoints).  Returns (kmax,)
     array of t values in [0, 1] in ASCENDING order, padded with 1.0.
     Ascending order is arranged by walking the gridlines in the direction
-    of travel, so downstream code can merge without sorting (jnp.sort's
-    TPU lowering is a compile-time sink under large vmapped batches).
+    of travel, so downstream code can merge without sorting (a sort under
+    a large vmapped batch is a compile-time sink).
     """
     lo = jnp.minimum(a0, a1)
     hi = jnp.maximum(a0, a1)
@@ -104,7 +106,10 @@ def _merge_breakpoints(tx: jnp.ndarray, ty: jnp.ndarray):
     slots = jnp.arange(n)
     oh_tx = (pos_tx[:, None] == slots[None, :]).astype(tx.dtype)
     oh_ty = (pos_ty[:, None] == slots[None, :]).astype(tx.dtype)
-    ts = tx @ oh_tx + ty @ oh_ty
+    # HIGHEST: an f32 product in reduced precision would round the
+    # breakpoints it places (~1e-3), moving every sub-segment boundary
+    ts = (jnp.matmul(tx, oh_tx, precision=HIGHEST)
+          + jnp.matmul(ty, oh_ty, precision=HIGHEST))
     # slot 0 stays 0; last slot is the endpoint t = 1
     return ts.at[-1].set(1.0)
 
@@ -159,8 +164,10 @@ def make_line_integral(
         basis = (px[:, None] * py[None, :]).reshape(deg * deg, *xg.shape)
         basis = basis / norms[:, None, None]
         c = coeffs_flat[i * sz + j]                          # (nseg, deg^2)
-        vals = jnp.einsum("qsg,sq->sg", basis, c)            # (nseg, deg)
-        seg = jnp.einsum("sg,g->s", vals, gwts)              # sum_g w_g f
+        vals = jnp.einsum("qsg,sq->sg", basis, c,
+                          precision=HIGHEST)                 # (nseg, deg)
+        seg = jnp.einsum("sg,g->s", vals, gwts,
+                         precision=HIGHEST)                  # sum_g w_g f
         seg_len = jnp.sqrt((x1 - x0) ** 2 + (y1 - y0) ** 2) * (tb - ta)
         return jnp.sum(seg * seg_len) / 2.0
 

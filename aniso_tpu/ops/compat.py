@@ -6,7 +6,7 @@ points, Geometry.cpp:129-154) but then evaluates that expansion with the
 basis at *global* [0,1] coordinates (integral_helper KernelFactory.cpp:180-186,
 evaluate :198-205, singularAdd :848-851).  Round 1 replicated this quirk by
 threading a `compat_global_basis` flag through every kernel evaluation --
-which breaks the translation invariance the whole TPU-native fast path is
+which breaks the translation invariance the whole fast path is
 built on (per-square basis values differ square to square).
 
 This module removes the need for the flag in the fast path: restricted to
@@ -68,9 +68,11 @@ def to_local_equivalent(grid: Grid, coeffs: np.ndarray) -> np.ndarray:
     if isinstance(coeffs, np.ndarray):
         out = np.einsum("ijnk,ina,jkb->ijab", cn, T, T)
         return (out * norms[None, None]).reshape(sz, sz, deg * deg)
+    import jax
     import jax.numpy as jnp
 
     Tj = jnp.asarray(T, dtype=coeffs.dtype)
     nj = jnp.asarray(norms, dtype=coeffs.dtype)
-    out = jnp.einsum("ijnk,ina,jkb->ijab", cn, Tj, Tj)
+    out = jnp.einsum("ijnk,ina,jkb->ijab", cn, Tj, Tj,
+                     precision=jax.lax.Precision.HIGHEST)
     return (out * nj[None, None]).reshape(sz, sz, deg * deg)

@@ -7,6 +7,7 @@ batched einsum over all squares at once.
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 from ..core.geometry import Grid
@@ -15,16 +16,17 @@ from ..core.geometry import Grid
 def project(grid: Grid, values: jnp.ndarray) -> jnp.ndarray:
     """Nodal values (sz, sz, deg^2) -> normalized-Legendre coeffs (sz, sz, deg^2)."""
     proj = jnp.asarray(grid.proj, dtype=values.dtype)
-    return jnp.einsum("bq,ijq->ijb", proj, values)
+    return jnp.einsum("bq,ijq->ijb", proj, values,
+                      precision=jax.lax.Precision.HIGHEST)
 
 
 def evaluate_at_nodes_np(grid: Grid, coeffs) -> "np.ndarray":
     """Host (numpy) twin of evaluate_at_nodes for the *local* basis:
     sigma_hat at the grid's own nodes from local-basis coefficients.
 
-    Used by set_coeff to stay off the device (remote-TPU D2H transfers are
-    expensive); under the global-basis quirk callers pass the
-    compat-transformed coefficients (ops.compat), which is equivalent.
+    set_coeff runs the whole sigma pipeline on the host in f64; under the
+    global-basis quirk callers pass the compat-transformed coefficients
+    (ops.compat), which is equivalent.
     """
     import numpy as np
     from ..core.legendre import basis2d_np

@@ -18,7 +18,7 @@ to the raw per-square charge:
 with S_m = -coarse(3x3) + refined(8 neighbours) + duffy(self).  Building S_m
 costs O(deg^4 * (9 + 8*16 deg^2 + 8 singRule^2)) -- microseconds -- and is
 independent of grid size.  Application is a 3x3 "conv" with deg^2 channels:
-one MXU-friendly convolution instead of gigabytes of cache traffic.
+one small convolution instead of gigabytes of cache traffic.
 
 Note the exact composition (SURVEY.md section 7 hard part (e)): the coarse
 removal *includes* the self square (reference :460 commented-out `continue`),

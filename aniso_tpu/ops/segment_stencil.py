@@ -10,9 +10,9 @@ square.  The exact piecewise Gauss quadrature of E(p, q)
       = sum_{cells c, basis b} W[pair, c, b] * coeff[cell c, b]
 
 therefore has *static* weights W (computed once in numpy, f64) against a
-patch of per-cell Legendre coefficients.  On TPU the E tensor for all squares
+patch of per-cell Legendre coefficients.  The E tensor for all squares
 at once is then a single einsum of W with a shifted stack of the coefficient
-field: pure MXU work, no gathers, no data-dependent control flow.
+field: dense contraction work, no gathers, no data-dependent control flow.
 
 (The generic per-pair path in ops.attenuation remains for unstructured pairs
 and oracle tests; its XLA gather lowering is a measured compile-time sink at

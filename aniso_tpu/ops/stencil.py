@@ -3,8 +3,8 @@
 out[x, y, kt] = sum_{a, b, ks} stencil[a, b, kt, ks] * u[x-1+a, y-1+b, ks]
 
 with zero boundary (squares outside the domain contribute nothing, matching
-the reference's boundary guards, KernelFactory.cpp:462-463).  XLA lowers this
-conv onto the MXU; it replaces the reference's three near-field passes and
+the reference's boundary guards, KernelFactory.cpp:462-463).  XLA compiles
+this conv; it replaces the reference's three near-field passes and
 their gigabyte caches.
 """
 
@@ -35,3 +35,15 @@ def apply_per_square(mats: jnp.ndarray, u: jnp.ndarray) -> jnp.ndarray:
     """Per-square (sz, sz, nq, nq) block-diagonal application (compat Duffy)."""
     return jnp.einsum("ijts,ijs->ijt", mats, u,
                       precision=lax.Precision.HIGHEST)
+
+
+def patches_3x3(u_pad: jnp.ndarray) -> jnp.ndarray:
+    """(X+2, Y+2, q) pre-padded field -> (q, 3, 3, X, Y) neighbour windows,
+    out[k, a, b, i, j] = u_pad[i + a, j + b, k]: nine static slices, exact
+    data movement with no arithmetic (so no precision to pin)."""
+    X, Y = u_pad.shape[0] - 2, u_pad.shape[1] - 2
+    win = jnp.stack([
+        jnp.stack([u_pad[a:a + X, b:b + Y] for b in range(3)])
+        for a in range(3)
+    ])                                               # (3, 3, X, Y, q)
+    return jnp.moveaxis(win, -1, 0)

@@ -1,21 +1,23 @@
-"""SPMD domain decomposition over a TPU device mesh.
+"""SPMD domain decomposition over a mesh of GPUs.
 
 The reference's only parallelism is shared-memory OpenMP loops
-(KernelFactory.cpp:214-216 etc., SURVEY.md section 2).  The TPU-native
-counterpart is spatial domain decomposition of the (sz, sz, nq) grid of
-squares over a 2D jax.sharding.Mesh:
+(KernelFactory.cpp:214-216 etc., SURVEY.md section 2).  The counterpart
+here is spatial domain decomposition of the (sz, sz, nq) grid of squares
+over a 2D jax.sharding.Mesh (square as possible: the cards of one host
+are joined all to all over NVLink, so the mesh follows the domain
+decomposition rather than a physical torus):
 
   * fields and per-square caches are sharded P("x", "y", None);
   * the 3x3 near-field stencil (a conv) gets its one-square halo exchange
-    inserted by XLA GSPMD over ICI;
+    inserted by XLA GSPMD (NCCL collective-permutes over NVLink);
   * FMM level arrays stay sharded while boxes-per-axis >= mesh-axis size
     and are replicated at the (tiny) coarse levels;
   * GMRES dot products / norms on sharded operands become psums.
 
 Everything is driven through jit + NamedSharding (GSPMD) rather than a
-hand-rolled NCCL analogue: XLA chooses and schedules the collectives.
-shard_map/pallas-DMA variants are an optimization layer on top, not a
-correctness requirement.
+hand-rolled NCCL schedule: XLA chooses and schedules the collectives.
+The shard_map variants (parallel.halo) are an optimization layer on top,
+not a correctness requirement.
 """
 
 from __future__ import annotations
@@ -69,10 +71,10 @@ def shard_pytree(mesh: Mesh, tree):
     """Place a solver cache / mode-static pytree: per-square / per-box
     arrays sharded over their spatial dims where divisible, small static
     operators replicated.  The spatial dims sit at different positions per
-    tensor family (all layouts keep them minor-most on the *minor* side
-    for TPU tiling, fmm.smooth):
+    tensor family (fmm.smooth):
 
       m2l_E levels  (4, m2, m2, P)            -> spatial dims 1, 2
+      fine per-class blocks (m2, m2, r, 27r)  -> spatial dims 0, 1
       near_E        (3, 3, nq, nq, sz, sz)    -> spatial dims 4, 5
       duffy         (nq, nq, sz, sz)          -> spatial dims 2, 3
       fields etc.   (sz, sz, ...)             -> spatial dims 0, 1
@@ -81,7 +83,7 @@ def shard_pytree(mesh: Mesh, tree):
     def place(path, x):
         x = jnp.asarray(x)
         # structural dispatch on exact pytree keys (not path-substring
-        # matching; round-2 VERDICT weak item 9): the ROOT dict key names
+        # matching): the ROOT dict key names
         # the tensor family, the LEAF key distinguishes the factored-level
         # members ('patch' sharded, 'W' replicated)
         keys = tuple(str(getattr(p, "key", p)) for p in path)
@@ -89,16 +91,10 @@ def shard_pytree(mesh: Mesh, tree):
         leaf = keys[-1] if keys else ""
         if root == "m2l_E":
             # per-class dense block of a fine level (TUPLE member, leaf
-            # "[c]"): y-minor (m2, r, 27r, m2) -> spatial dims 0, 3;
-            # row-major (m2, m2, r, 27r) -> spatial dims 0, 1
+            # "[c]"): (m2, m2, r, 27r) -> spatial dims 0, 1
             # (fmm.smooth.build_m2l_E_fine)
             if leaf.startswith("["):
-                if x.ndim == 4 and x.shape[-1] == x.shape[0]:
-                    if _divisible(x.shape, mesh, 0, 3):
-                        return jax.device_put(
-                            x, NamedSharding(mesh, P("x", None, None, "y"))
-                        )
-                elif _divisible(x.shape, mesh, 0, 1):
+                if _divisible(x.shape, mesh, 0, 1):
                     spec = P("x", "y", *([None] * (x.ndim - 2)))
                     return jax.device_put(x, NamedSharding(mesh, spec))
                 return replicate(mesh, x)
@@ -150,7 +146,7 @@ def sharded_solver(solver, mesh: Mesh, halo: str = "gspmd"):
     AND the fine-level M2L parity-plane exchange run as explicit
     `ppermute`s inside shard_map (parallel.halo) -- the communication
     pattern is pinned independent of compiler heuristics, as the staging
-    ground for compute/communication overlap on real ICI.  Levels or
+    ground for compute/communication overlap across cards.  Levels or
     tensors the hand path cannot take (factored/virtual levels, coarse
     replicated levels, non-divisible shapes) fall back to GSPMD per
     level, so both modes are always correct.
@@ -176,10 +172,7 @@ def sharded_solver(solver, mesh: Mesh, halo: str = "gspmd"):
         )
 
         mx, my = mesh.shape["x"], mesh.shape["y"]
-        tr_fns = {
-            o: make_fine_translate_shardmap(mesh, o)
-            for o in ("y_minor", "row")
-        }
+        fine_translate = make_fine_translate_shardmap(mesh)
         near_fns = [
             make_near_apply_shardmap(mesh, m, ms.get("duffy") is not None)
             for m, ms in enumerate(solver._mode_statics)
@@ -194,17 +187,9 @@ def sharded_solver(solver, mesh: Mesh, halo: str = "gspmd"):
             m = M_l.shape[0]
             if m % (2 * mx) or M_l.shape[1] % (2 * my) or m2 % mx:
                 return None
-            if E_l[0].ndim != 4:
+            if E_l[0].ndim != 4 or E_l[0].shape[1] % my:
                 return None
-            if E_l[0].shape[-1] == m2:
-                orient = "y_minor"
-                if m2 % my:
-                    return None
-            else:
-                orient = "row"
-                if E_l[0].shape[1] % my:
-                    return None
-            return tr_fns[orient](E_l, cosr_l, M_l, z)
+            return fine_translate(E_l, cosr_l, M_l, z)
 
         def near_fn(cch, ms, mode, u, z):
             if "near_E" not in cch:

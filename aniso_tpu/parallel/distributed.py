@@ -1,17 +1,19 @@
-"""Multi-host initialization for TPU pod slices (SURVEY section 7 stage 6).
+"""Multi-host initialization for GPU clusters (SURVEY section 7 stage 6).
 
 The reference is single-process (OpenMP threads over one address space,
-main.cpp:8-10); scaling beyond one host on TPU means one JAX process per
-host cooperating through `jax.distributed`.  After `init()`, every host
-sees the global device set and the existing GSPMD path (parallel.api)
-runs unchanged over a mesh spanning the pod slice: leaf-level fields and
-caches stay sharded over ("x", "y"), halo traffic rides ICI within a host
-island and DCN across, all chosen by XLA from the same program that runs
-single-host.
+main.cpp:8-10); scaling beyond one host means one JAX process per host
+cooperating through `jax.distributed`.  After `init()`, every host sees
+the global device set and the existing GSPMD path (parallel.api) runs
+unchanged over a mesh spanning all hosts' GPUs: leaf-level fields and
+caches stay sharded over ("x", "y"), and halo traffic runs as NCCL
+collectives -- over NVLink between the cards of one host and over the
+cluster network across hosts -- all chosen by XLA from the same program
+that runs on one host.
 
 Driven from the CLI: `python -m aniso_tpu run data.cfg --distributed
-[--coordinator host:port --num-processes N --process-id K]`, or zero-config
-on Cloud TPU metadata environments.
+[--coordinator host:port --num-processes N --process-id K]`, or with no
+arguments under Slurm or OpenMPI, whose environment
+`jax.distributed.initialize` reads on its own.
 """
 
 from __future__ import annotations
@@ -31,9 +33,9 @@ def init(
 ) -> None:
     """Initialize jax.distributed across hosts.
 
-    With no arguments, relies on the TPU metadata/env auto-detection
-    (Cloud TPU, Slurm, OpenMPI); explicit args override for bare-metal
-    setups.  Values may also come from ANISO_COORDINATOR,
+    With no arguments, relies on jax.distributed's cluster auto-detection
+    (Slurm, OpenMPI); explicit args override it elsewhere -- a machine
+    with no cluster manager needs all three.  Values may also come from ANISO_COORDINATOR,
     ANISO_NUM_PROCESSES, ANISO_PROCESS_ID.
     """
     coordinator = coordinator or os.environ.get("ANISO_COORDINATOR")

@@ -6,7 +6,7 @@ This module is the hand-scheduled variant from SURVEY section 7 stage 6:
 the one-square boundary ring is exchanged explicitly with
 `jax.lax.ppermute` inside `shard_map`, which (a) pins the communication
 pattern independent of compiler heuristics, and (b) is the substrate for
-overlapping the exchange with interior compute on real ICI meshes.
+overlapping the exchange with interior compute across cards.
 
 The reference's analogue is simply OpenMP threads sharing one address
 space (KernelFactory.cpp:446-448): the halo IS the new work.
@@ -16,10 +16,11 @@ from __future__ import annotations
 
 import functools
 
-import jax
 import jax.numpy as jnp
 from jax import lax
 from jax.sharding import Mesh, PartitionSpec as P
+
+from ..ops.stencil import patches_3x3
 
 try:  # jax >= 0.8
     from jax import shard_map
@@ -40,17 +41,6 @@ def halo_exchange_1(u: jnp.ndarray, axis_name: str, size: int, dim: int):
     from_prev = lax.ppermute(lo_slab, axis_name, fwd)
     from_next = lax.ppermute(hi_slab, axis_name, bwd)
     return jnp.concatenate([from_prev, u, from_next], axis=dim)
-
-
-def _patch_3x3_local(ue: jnp.ndarray) -> jnp.ndarray:
-    """(lx+2, ly+2, q) halo-extended block -> (q, 3, 3, lx, ly) windows."""
-    q = ue.shape[-1]
-    patches = jax.lax.conv_general_dilated_patches(
-        ue.transpose(2, 0, 1)[None], filter_shape=(3, 3),
-        window_strides=(1, 1), padding="VALID",
-        precision=lax.Precision.HIGHEST,
-    )  # (1, q*9, lx, ly)
-    return patches[0].reshape(q, 3, 3, ue.shape[0] - 2, ue.shape[1] - 2)
 
 
 def make_near_apply_shardmap(mesh: Mesh, mode: int, has_duffy: bool):
@@ -75,7 +65,7 @@ def make_near_apply_shardmap(mesh: Mesh, mode: int, has_duffy: bool):
             + nstat[..., None, None]
         )
         out = jnp.einsum(
-            "abtsij,sabij->ijt", block, _patch_3x3_local(ue), precision=HP
+            "abtsij,sabij->ijt", block, patches_3x3(ue), precision=HP
         )
         if mode == 0:
             out = out + sigma_w * u
@@ -103,7 +93,7 @@ def make_near_apply_shardmap(mesh: Mesh, mode: int, has_duffy: bool):
     return f
 
 
-def make_fine_translate_shardmap(mesh: Mesh, orient: str):
+def make_fine_translate_shardmap(mesh: Mesh):
     """Hand-scheduled M2L at one fine DENSE level: the parity-plane V-list
     halo exchange as explicit `ppermute`s inside shard_map, then the same
     fused exp(-E) * cos/r multiply-reduce as fmm.apply._m2l_translate on
@@ -112,14 +102,12 @@ def make_fine_translate_shardmap(mesh: Mesh, orient: str):
     This pins the M2L communication pattern (4 parity planes x 2 axes x 2
     directions of one-box slabs -- the designed O(halo) traffic) completely
     independent of GSPMD heuristics, and is the staging ground for
-    overlapping the exchange with interior compute on real ICI (issue the
+    overlapping the exchange with interior compute across cards (issue the
     ppermutes, translate the interior boxes, then the halo-dependent ring).
 
     Returns f(E4_tuple, cosr_l, M_l, z) -> T (m, m, r) sharded P("x","y"):
-      E4_tuple: 4 per-class dense blocks -- orient='y_minor':
-        (m2, r, 27r, m2) sharded P("x", None, None, "y"); orient='row':
-        (m2, m2, r, 27r) sharded P("x", "y", None, None)
-        (fmm.smooth.build_m2l_E_fine);
+      E4_tuple: 4 per-class dense (m2, m2, r, 27r) blocks sharded
+        P("x", "y", None, None) (fmm.smooth.build_m2l_E_fine);
       cosr_l: (4, r*27*r) replicated; M_l: (m, m, r) sharded P("x","y").
 
     The local interleave of the 4 class blocks reproduces exactly the
@@ -157,16 +145,9 @@ def make_fine_translate_shardmap(mesh: Mesh, orient: str):
                 ],
                 axis=2,
             ).reshape(l2x, l2y, 27 * r)
-            E4 = E4s[c]
-            cos4 = cosr[c].reshape(r, ob)
-            if orient == "y_minor":
-                gt = jnp.transpose(gsel, (0, 2, 1))
-                op = jnp.exp(-(E4 + z)) * cos4[None, :, :, None] \
-                    * gt[:, None, :, :]
-                outs.append(jnp.transpose(jnp.sum(op, axis=2), (0, 2, 1)))
-            else:                           # row-major (l2x, l2y, r, ob)
-                op = jnp.exp(-(E4 + z)) * cos4 * gsel[:, :, None, :]
-                outs.append(jnp.sum(op, axis=-1))
+            op = jnp.exp(-(E4s[c] + z)) * cosr[c].reshape(r, ob) \
+                * gsel[:, :, None, :]
+            outs.append(jnp.sum(op, axis=-1))
         return (
             jnp.stack(outs)
             .reshape(2, 2, l2x, l2y, r)
@@ -174,10 +155,7 @@ def make_fine_translate_shardmap(mesh: Mesh, orient: str):
             .reshape(2 * l2x, 2 * l2y, r)
         )
 
-    E_spec = (
-        P("x", None, None, "y") if orient == "y_minor"
-        else P("x", "y", None, None)
-    )
+    E_spec = P("x", "y", None, None)
     return shard_map(
         local,
         mesh=mesh,

@@ -1,8 +1,8 @@
-"""Collective-traffic accounting for SPMD programs (VERDICT item 6).
+"""Collective-traffic accounting for SPMD programs.
 
 GSPMD chooses the collectives; this module makes the choice *visible* so
 tests can gate on it: the domain-decomposed near field and the parity-plane
-M2L gathers must move O(halo) bytes via collective-permute over ICI, never
+M2L gathers must move O(halo) bytes via collective-permute, never
 O(volume) via all-gather.  The reference has no analogue (single-process
 OpenMP); this plays the role its shared address space played.
 """

@@ -8,12 +8,12 @@ z = Diff^-1 Diff2 h = h + Diff^-1 M(sigma_s) h: the classic DSA form
 Eddington diffusion coefficient D = 0.5/sigma_t (aniso.m:77) and Marshak
 (Robin) boundary z/2 + D dz/dn = 0 from the E/2 edge term (aniso.m:89-90).
 
-TPU-native design (SURVEY.md section 7 stage 5): the reference builds this
+Design (SURVEY.md section 7 stage 5): the reference builds this
 with an external FEM library (femm, an absent submodule) on a separate
 triangle mesh and a sparse direct solve.  Here the diffusion operator lives
 on the solver's own sz x sz grid of squares, cell-centered finite-volume
-with harmonic-mean face coefficients — a 5-point stencil, which on TPU is a
-fused elementwise+shift computation — and the solve is device-resident
+with harmonic-mean face coefficients — a 5-point stencil, which XLA fuses
+into elementwise+shift work — and the solve is device-resident
 Jacobi-preconditioned CG inside `lax.while_loop`, so the whole
 preconditioned GMRES iteration stays under one jit with no host round trips.
 DSA only needs to capture the smooth diffusion-limit error modes, so the
@@ -25,7 +25,7 @@ preconditioner corrects Fourier mode 0 and passes higher modes through
 (the reference's prec indexes a single RTE field, aniso.m:111-119, i.e. is
 only ever applied with N = 1).
 
-Discretization awareness (round-3 VERDICT item 9).  The diffusion
+Discretization awareness.  The diffusion
 operator is continuum-consistent; on cells more than ~1.5 mean free
 paths thick the discrete transport operator departs from its continuum
 diffusion limit and the raw correction actively HURTS (measured 43->67

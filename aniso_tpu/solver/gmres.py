@@ -1,13 +1,13 @@
 """Device-resident restarted GMRES with Givens rotations.
 
 Reference semantics: gmres.cpp:53-169 (restarted GMRES(m), modified
-Gram-Schmidt, Givens rotations, relative residual |Ax-b|/|b|).  TPU-native
-differences:
+Gram-Schmidt, Givens rotations, relative residual |Ax-b|/|b|).  Differences
+here:
 
   * the whole solve lives in one `lax.while_loop` under jit -- no host
     round-trips between iterations (the reference prints per iteration);
   * orthogonalization is CGS2 (two-pass classical Gram-Schmidt): two batched
-    (m+1, n) @ (n,) GEMVs on the MXU instead of the reference's sequential
+    (m+1, n) @ (n,) GEMVs instead of the reference's sequential
     ddot/daxpy chain (gmres.cpp:116-119); numerically as robust as MGS and
     collective-friendly when the basis is sharded (two psums per iteration
     instead of 2(i+1));
@@ -15,8 +15,8 @@ differences:
     with dynamic_update_slice;
   * the iterate keeps its NATURAL field shape throughout -- no reshape(-1).
     Flattening a GSPMD-sharded (sz, sz, nq) field merges the sharded dims
-    and forces volume all-gathers in every basis update (round-4 VERDICT
-    item 5: 144 all-gathers x 8.6 MB/shard per 256^2 sharded solve); in
+    and forces volume all-gathers in every basis update (144 all-gathers x
+    8.6 MB/shard per 256^2 sharded solve on the virtual CPU mesh); in
     natural shape the basis shards with the field and each CGS2 pass is a
     per-shard contraction + an (m+1)-scalar psum.
 
@@ -36,9 +36,9 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 
-# full-f32 MXU arithmetic for the Arnoldi GEMVs: with the TPU bf16-multiply
-# default the basis loses orthogonality at ~1e-3 and the computed solution
-# is wrong while the Givens residual estimate still "converges"
+# true f32 products for the Arnoldi GEMVs: with reduced-precision products
+# (TF32 on an NVIDIA GPU) the basis loses orthogonality at ~1e-3 and the
+# computed solution is wrong while the Givens estimate still "converges"
 HIGHEST = lax.Precision.HIGHEST
 
 
@@ -137,7 +137,7 @@ def gmres(
     # x64 disabled this canonicalizes back to f32 and changes nothing).
     # Over m = 80 Givens steps the f32 recurrence drifts the residual
     # ESTIMATE by ~1e-5 relative; f64 keeps the estimate honest while the
-    # Krylov basis and matvecs stay in operand dtype on the MXU.
+    # Krylov basis and matvecs stay in operand dtype.
     hdtype = jax.dtypes.canonicalize_dtype(jnp.float64)
 
     def inner_cycle(x, r, beta, j_start):

@@ -1,15 +1,18 @@
 """Mixed-precision iterative refinement: f32 inner GMRES, f64 residuals.
 
 The reference solves everything in f64 to 1e-12 (bbfmm/utils.h:68,
-main.cpp:141).  The TPU MXU is f32/bf16; XLA's f64 emulation runs the
-whole solve ~20x slower (measured at 64^2 on a v5e chip: 24.8 s warm vs
-1.2 s f32).  Classical Wilkinson refinement gets f64 accuracy at f32
-speed: f64 is needed only to *evaluate residuals*, one corrected matvec
-per round (166 ms at 64^2), while the Krylov iteration stays in f32.
+main.cpp:141).  Classical Wilkinson refinement gets f64 accuracy from an
+f32 fast path: f64 is needed only to *evaluate residuals*, one corrected
+matvec per round, while the Krylov iteration stays in f32, whose E caches
+take half the device memory and bandwidth of f64.  Whether this beats a
+native f64 solve (`dtype="float64"`) is measured per configuration
+(ROADMAP D4).  Compiled, one f64 residual matvec of the 512^2 refined
+solve took 0.045 s beside 0.157 s for its 17-iteration f32 inner solve
+(NVIDIA H100 80GB HBM3 at 400 W; chip_smoke.py P3 prints the phases).
 
     x_0 = 0
     repeat:  r_k = b - A x_k           (f64 operator, f64 caches)
-             solve A d = r_k / |r_k|   (f32 chip GMRES to its ~1e-6 floor)
+             solve A d = r_k / |r_k|   (f32 GMRES to its ~1e-6 floor)
              x_{k+1} = x_k + |r_k| d   (f64 update)
 
 Each round contracts the true residual by the inner solve's achievable
@@ -74,8 +77,8 @@ def refined_solve(
     N = cfg.kernel_size
     shape = (N,) + solver.grid.nodes_x.shape
     # the f64 state (b, x, r) lives with the f64 twin operator: on the
-    # accelerator itself for refine_twin='device' (no host round-trips at
-    # all -- the normalized residual is a dtype cast in HBM), or on the
+    # device itself for refine_twin='device' (no host round-trips at all
+    # -- the normalized residual is a dtype cast on the device), or on the
     # host CPU backend for refine_twin='host' (only the normalized f32
     # residual crosses per round, and the correction comes back)
     twin_dev = solver._twin_device

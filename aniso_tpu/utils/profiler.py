@@ -5,7 +5,7 @@ Plays the role of the reference's two instruments (SURVEY.md section 5):
 percent-of-total table (reference utility/Profiler.h:12-69), and the
 compile-time `RUN` phase macro (reference bbfmm/utils.h:51-62).
 
-TPU-specific additions the reference has no analogue for:
+Additions the reference has no analogue for:
 
   * sections synchronize on device work (`jax.block_until_ready`) so a
     section measures execution, not dispatch;

@@ -1,51 +1,43 @@
-"""Roofline accounting for the corrected FMM matvec (round-3 VERDICT
-item 6: the bench records pts/s only; judging "actually fast" needs bytes
-streamed and FLOPs per matvec against the chip's peaks).
+"""Roofline accounting for the corrected FMM matvec: bytes streamed and
+FLOPs per matvec, against the peaks of the device that ran it.
 
-The model counts the MINIMUM HBM traffic (every resident cache byte read
-exactly once per matvec -- the algorithm is a streaming evaluation of its
-caches) and the arithmetic of every contraction.  Achieved bandwidth =
-min_bytes / measured_time is therefore a LOWER bound on what the chip
-actually moved; %HBM-peak computed from it is a lower bound on roofline
-position.  Factored levels add their exact re-form matmul FLOPs and the
-written+re-read E transient.
+The model counts the MINIMUM device-memory traffic (every resident cache
+byte read exactly once per matvec -- the algorithm is a streaming
+evaluation of its caches) and the arithmetic of every contraction.
+Achieved bandwidth = min_bytes / measured_time is therefore a LOWER bound
+on what the device actually moved; the share of peak computed from it is
+a lower bound on roofline position.  Factored levels add their exact
+re-form matmul FLOPs and the written+re-read E transient.
 
-Peaks default to TPU v5e (one chip): 819 GB/s HBM, 197 TFLOP/s bf16 MXU.
-Every contraction in this framework pins jax.lax.Precision.HIGHEST, which
-the TPU executes as a 6-pass bf16x6 ("f32 emulation") matmul, so the
-relevant MXU ceiling for %peak is 197/6 = 32.8 TFLOP/s.
-
-The reference has no analogue (SURVEY section 6: it publishes no numbers
-at all); this module is what lets BASELINE.md state each row's roofline
-position instead of a bare pts/s figure.
+Every contraction pins jax.lax.Precision.HIGHEST, which an NVIDIA GPU
+runs as true f32 outside the tensor cores, so the f32 compute peak is
+the non-tensor-core rate.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-# one TPU v5e chip (public spec numbers)
-V5E_HBM_GBPS = 819.0
-V5E_MXU_BF16_TFLOPS = 197.0
-V5E_MXU_F32_HIGHEST_TFLOPS = V5E_MXU_BF16_TFLOPS / 6.0  # 6-pass bf16x6
+# Published peaks per device, keyed by jax `device_kind`.  Source: NVIDIA
+# H100 Tensor Core GPU data sheet, SXM part (80 GB HBM3 at 3.35 TB/s;
+# 67 TFLOP/s FP32 and 34 TFLOP/s FP64 outside the tensor cores), at the
+# full 700 W power limit.  A device missing here gets no shares.
+PEAKS = {
+    "NVIDIA H100 80GB HBM3": {
+        "hbm_gbps": 3350.0,
+        "f32_tflops": 67.0,
+        "f64_tflops": 34.0,
+    },
+}
+
+
+def device_peaks(device_kind: str):
+    """Peaks dict for `device_kind`, or None when the table lacks it."""
+    return PEAKS.get(device_kind)
 
 
 def _nbytes(a) -> int:
     return int(np.prod(a.shape)) * a.dtype.itemsize
-
-
-def _roundup(n: int, q: int) -> int:
-    return -(-n // q) * q
-
-
-def _nbytes_tiled(a) -> int:
-    """Real HBM bytes of a 4D per-class dense block under the TPU (8,128)
-    tile: the 27r lane dim pads 432 -> 512 (what the matvec streams)."""
-    if a.ndim != 4:
-        return _nbytes(a)
-    s = a.shape
-    return (int(np.prod(s[:-2])) * _roundup(s[-2], 8)
-            * _roundup(s[-1], 128) * a.dtype.itemsize)
 
 
 def matvec_costs(solver) -> dict:
@@ -108,10 +100,10 @@ def matvec_costs(solver) -> dict:
             detail[f"m2l_level_{lv}"] = "factored"
         else:                                # dense: tuple or stacked
             blocks = E_l if isinstance(E_l, (list, tuple)) else (E_l,)
-            lvl_bytes = sum(_nbytes_tiled(b) for b in blocks)
+            lvl_bytes = sum(_nbytes(b) for b in blocks)
             bytes_read += lvl_bytes
             detail[f"m2l_level_{lv}"] = "dense"
-        # fused operator exp(-E)*cosr (~3 VPU ops/element) + the batched
+        # fused operator exp(-E)*cosr (~3 elementwise ops) + the batched
         # (r x 27r) @ (27r) translate per box per class
         flops += 3 * 4 * m2 * m2 * P
         flops += 2 * 4 * m2 * m2 * P
@@ -152,30 +144,33 @@ def matvec_costs(solver) -> dict:
     }
 
 
-def roofline_summary(
-    solver, matvec_s: float,
-    hbm_peak_gbps: float = V5E_HBM_GBPS,
-    mxu_peak_tflops: float = V5E_MXU_F32_HIGHEST_TFLOPS,
-) -> dict:
-    """Roofline position of a measured matvec time on the given chip."""
+def roofline_summary(solver, matvec_s: float, peaks) -> dict:
+    """Roofline position of a measured matvec time.
+
+    peaks: an entry of PEAKS (`device_peaks(device.device_kind)`); with
+    None the shares are None -- no default device is assumed."""
     c = matvec_costs(solver)
     gbps = c["min_hbm_bytes"] / matvec_s / 1e9
     gbps_incl = (c["min_hbm_bytes"] + c["transient_hbm_bytes"]) \
         / matvec_s / 1e9
     tflops = c["flops"] / matvec_s / 1e12
+    flop_peak = None
+    if peaks is not None:
+        f64 = np.dtype(solver.dtype).itemsize == 8
+        flop_peak = peaks["f64_tflops" if f64 else "f32_tflops"]
+
+    def share(x, peak):
+        return None if peak is None else round(100.0 * x / peak, 2)
+
     return {
         **c,
-        "matvec_ms": round(matvec_s * 1e3, 3),
+        "matvec_ms": round(matvec_s * 1e3, 4),
         "achieved_gbps_min": round(gbps, 1),
         "achieved_gbps_incl_transients": round(gbps_incl, 1),
-        "pct_hbm_peak": round(100.0 * gbps / hbm_peak_gbps, 1),
-        "pct_hbm_peak_incl_transients": round(
-            100.0 * gbps_incl / hbm_peak_gbps, 1),
+        "pct_hbm_peak": share(gbps, peaks and peaks["hbm_gbps"]),
+        "pct_hbm_peak_incl_transients": share(
+            gbps_incl, peaks and peaks["hbm_gbps"]),
         "achieved_tflops": round(tflops, 4),
-        "pct_mxu_peak_f32_highest": round(
-            100.0 * tflops / mxu_peak_tflops, 2),
-        "peaks": {
-            "hbm_gbps": hbm_peak_gbps,
-            "mxu_tflops_f32_highest": mxu_peak_tflops,
-        },
+        "pct_flop_peak": share(tflops, flop_peak),
+        "peaks": peaks,
     }

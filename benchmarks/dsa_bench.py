@@ -1,6 +1,6 @@
 #!/usr/bin/env python
-"""DSA preconditioner effectiveness on benchmark-style configs (VERDICT
-item 8): plain vs DSA-preconditioned GMRES iteration counts and wall
+"""DSA preconditioner effectiveness on benchmark-style configs: plain vs
+DSA-preconditioned GMRES iteration counts and wall
 times with the FMM backend, across optical thicknesses tau = sigma_t*dx.
 
 Regenerates benchmarks/results_dsa.json.  Runs on the CPU backend in f64

@@ -1,13 +1,13 @@
 #!/usr/bin/env python
-"""Scaling-efficiency harness over a virtual device mesh (VERDICT item 6).
+"""Scaling-efficiency harness over a virtual device mesh.
 
 Runs the GSPMD domain-decomposed corrected matvec on 1/2/4/8 devices,
 reports per-device wall time, weak/strong efficiency, and the collective
 traffic each mesh size actually emits (bytes + op counts from compiled
-HLO).  On this machine devices are virtual CPU shards (no multi-chip
-hardware is attached); on a real pod slice the same harness measures ICI
-scaling -- the numbers to quote are the collective-byte counts (exact,
-hardware-independent) and the structure of the scaling curve.
+HLO).  On the CPU the devices are virtual shards; on a host with several
+GPUs the same harness measures NVLink scaling -- the numbers to quote
+from a CPU run are the collective-byte counts (exact, hardware-
+independent) and the structure of the scaling curve.
 
 Usage: XLA_FLAGS=--xla_force_host_platform_device_count=8 \
        JAX_PLATFORMS=cpu python benchmarks/scaling_virtual.py --sz 64
@@ -16,8 +16,8 @@ Usage: XLA_FLAGS=--xla_force_host_platform_device_count=8 \
 import argparse
 import json
 import os
-# sharded benchmarks: 4D dense orientations only (the xy-minor small-
-# level form cannot shard spatially; fmm.smooth.unsharded_build)
+# sharded benchmarks: evicted fine levels take the GSPMD-safe factored
+# form (fmm.smooth.unsharded_build)
 os.environ.setdefault("ANISO_UNSHARDED", "0")
 import sys
 import time
@@ -100,7 +100,7 @@ def main():
                     "OVERSUBSCRIPTION, not the design, and must not be "
                     "read as scaling results.  Only the collective "
                     "counts/bytes columns are meaningful here; real "
-                    "scaling needs pod hardware (BASELINE config 5).",
+                    "scaling needs several GPUs (BASELINE config 5).",
             "field_bytes": g.n_nodes * 4,
             "rows": rows,
         }, f, indent=1)

@@ -1,7 +1,5 @@
 #!/usr/bin/env python
-"""Converged sharded solves on the virtual device mesh (round-3 VERDICT
-item 5: round 3 only showed 2 sharded GMRES iterations at 1024^2 --
-shape validation, not convergence).
+"""Converged sharded solves on the virtual device mesh.
 
 Runs the FULL f32 GMRES solve to tol under an 8-virtual-device GSPMD
 mesh at a multi-level (dense + factored) cache configuration -- the
@@ -18,8 +16,8 @@ Usage: python benchmarks/sharded_solve.py --sizes 256 [512]
 import argparse
 import json
 import os
-# sharded benchmarks: 4D dense orientations only (the xy-minor small-
-# level form cannot shard spatially; fmm.smooth.unsharded_build)
+# sharded benchmarks: evicted fine levels take the GSPMD-safe factored
+# form (fmm.smooth.unsharded_build)
 os.environ.setdefault("ANISO_UNSHARDED", "0")
 import sys
 import time
@@ -50,9 +48,9 @@ os.environ["XLA_FLAGS"] = flags
 import jax
 
 jax.config.update("jax_platforms", "cpu")
-os.makedirs("/tmp/aniso_tpu_jax_cache_cpu", exist_ok=True)
-jax.config.update("jax_compilation_cache_dir", "/tmp/aniso_tpu_jax_cache_cpu")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 10.0)
+from aniso_tpu.utils.compile_cache import setup_compile_cache  # noqa: E402
+
+setup_compile_cache()
 
 import jax.numpy as jnp
 import numpy as np
@@ -77,8 +75,8 @@ def run_one(sz, tol, restart, force_factored_leaf=True, with_ref=True):
     )
     saved = smooth._DENSE_E_LEVEL_CAP_BYTES
     if force_factored_leaf:
-        # leaf factored, everything else dense: the production mixed
-        # representation of the 512^2+/1024^2 configs
+        # leaf factored, everything else dense: the mixed representation
+        # of a sharded build whose leaf does not fit
         smooth._DENSE_E_LEVEL_CAP_BYTES = \
             smooth.fine_dense_level_bytes(
                 (1 << (sz.bit_length() - 2)), cfg.np_cheb, 4) // 4 - 1

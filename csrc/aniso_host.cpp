@@ -1,10 +1,10 @@
 // aniso_host: native host-side runtime for aniso_tpu.
 //
-// TPU-native equivalent of the reference's C++/OpenMP cache-assembly
+// Equivalent of the reference's C++/OpenMP cache-assembly
 // runtime (reference KernelFactory.cpp:67-190 lineIntegral +
 // :550-788 cache passes): the sigma-dependent attenuation line integrals
 // E(p, q) that feed the device caches are embarrassingly parallel scalar
-// work, best done on the host CPU in float64 with OpenMP while the TPU
+// work, best done on the host CPU in float64 with OpenMP while the device
 // holds the compiled matvec.  Exposed through a plain C ABI for ctypes.
 //
 // The quadrature is EXACTLY the one in aniso_tpu/ops/attenuation.py

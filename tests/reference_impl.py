@@ -3,7 +3,7 @@
 This is an independent numpy re-derivation of the reference pipeline
 (main.cpp:78-119: dense sums in place of the FMM, nearRemoval,
 refineAddOnFast, singularAddFast) used as a small-grid oracle for the
-vectorized TPU implementation.  Deliberately written with per-pair loops that
+vectorized implementation.  Deliberately written with per-pair loops that
 follow the reference control flow, so an indexing bug in the tensorized code
 cannot be replicated here.
 """

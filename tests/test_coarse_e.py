@@ -132,10 +132,13 @@ def test_dense_budget_allocates_coarsest_first(monkeypatch, rng):
     for lv in range(2, tcfg.leaf_level + 1):
         m2 = tcfg.boxes(lv) // 2
         if tcfg.box_size_squares(lv) <= 2:
-            # fine levels budget at their tile-padded 4D footprint
             lvl_bytes[lv] = smooth.fine_dense_level_bytes(m2, 3, 4)
         else:
             lvl_bytes[lv] = 4 * m2 * m2 * (r * 27 * r) * 4
+    # the budget counts true bytes: exactly the arrays it admits
+    cache = smooth.build_m2l_E(g, tcfg, 3, cdev, dtype=jnp.float32,
+                               coeffs_np=coeffs, budget_bytes=None)
+    assert smooth.m2l_cache_bytes(cache) == sum(lvl_bytes.values())
     coarse = sum(b for lv, b in lvl_bytes.items()
                  if tcfg.box_size_squares(lv) > 2)
     # enough for everything but the leaf
@@ -143,3 +146,67 @@ def test_dense_budget_allocates_coarsest_first(monkeypatch, rng):
     assert partial[4] == "factored" and partial[3] == "dense", partial
     starved = reprs(0)
     assert starved[3] == "factored" and starved[4] == "factored", starved
+
+
+class _Device:
+    """Stand-in for a jax device: platform, kind and memory_stats()."""
+
+    def __init__(self, platform, stats):
+        self.platform = platform
+        self.device_kind = f"fake {platform}"
+        self._stats = stats
+
+    def memory_stats(self):
+        return self._stats
+
+
+def test_device_budget_reads_bytes_limit():
+    gpu = _Device("gpu", {"bytes_limit": 60 << 30, "bytes_in_use": 0})
+    assert smooth.device_memory_budget(gpu) == 60 << 30
+    # the CPU backend reports no stats: the named CPU test budget
+    assert smooth.device_memory_budget(_Device("cpu", None)) == \
+        smooth.CPU_TEST_BUDGET_BYTES
+    with pytest.raises(RuntimeError, match="bytes_limit"):
+        smooth.device_memory_budget(_Device("gpu", {"bytes_in_use": 0}))
+    with pytest.raises(RuntimeError, match="bytes_limit"):
+        smooth.device_memory_budget(_Device("gpu", None))
+
+
+@pytest.mark.parametrize("room, leaf, mid", [
+    ("all", "dense", "dense"),
+    ("all_but_leaf", "per-offset", "dense"),
+    ("none", "per-offset", "per-offset"),
+])
+def test_solver_budget_from_bytes_limit(monkeypatch, room, leaf, mid):
+    """TransportSolver sizes its dense E levels from the device's
+    bytes_limit minus everything else resident: a level that does not
+    fit takes the per-offset recompute form (single device)."""
+    from aniso_tpu import SolverConfig
+    from aniso_tpu.solver.operator import TransportSolver
+
+    cfg = SolverConfig(domain_size=16, quad_rule=2, kernel_size=1, g=0.5,
+                       sing_rule=4, np_cheb=3, dtype="float32")
+    s = TransportSolver(cfg, backend="fmm")
+    tcfg = s._tcfg
+    fine = {lv: smooth.fine_dense_level_bytes(tcfg.boxes(lv) // 2, 3, 4)
+            for lv in (3, 4)}
+    coarse = smooth.coarse_dense_bytes(tcfg, 3, 4)
+    limit = s._resident_bytes() + {
+        "all": coarse + fine[3] + fine[4],
+        "all_but_leaf": coarse + fine[3] + fine[4] - 1,
+        "none": 0,
+    }[room]
+    real = smooth.device_memory_budget
+    monkeypatch.setattr(
+        smooth, "device_memory_budget",
+        lambda device=None: real(_Device("gpu", {"bytes_limit": limit})),
+    )
+    sig = np.full_like(s.grid.nodes_x, 5.0)
+    s.set_coeff(sig, sig + 0.2)
+    E = s._caches["m2l_E"]
+
+    def kind(v):
+        return "per-offset" if isinstance(v, dict) else "dense"
+
+    assert (kind(E[4]), kind(E[3])) == (leaf, mid)
+    assert kind(E[2]) == "dense"          # coarse levels are always dense

@@ -1,4 +1,4 @@
-"""Collective-traffic gates for the SPMD matvec (VERDICT round-1 item 6).
+"""Collective-traffic gates for the SPMD matvec.
 
 The domain-decomposed corrected matvec must scale by exchanging halos,
 not by gathering the volume: GSPMD should lower the 3x3 near-field conv
@@ -45,8 +45,9 @@ def sharded_matvec():
     s = TransportSolver(cfg, backend="fmm")
     g = s.grid
     sig = 8 * 0.5 * (1 - np.cos(2 * np.pi * g.nodes_x))
-    # sharded build: keep 4D dense orientations (the xy-minor merged box
-    # axis cannot shard spatially and would break the O(halo) gates)
+    # sharded build: evicted levels take the factored form (the
+    # per-offset form would re-gather the field and break the O(halo)
+    # gates)
     saved = smooth._UNSHARDED_BUILD
     smooth._UNSHARDED_BUILD = False
     try:
@@ -95,8 +96,8 @@ def factored_solver():
     saved = smooth._DENSE_E_LEVEL_CAP_BYTES
     saved_xy = smooth._UNSHARDED_BUILD
     smooth._DENSE_E_LEVEL_CAP_BYTES = 256 * 1024
-    # sharded build: factored fallback + 4D orientations (the per-offset
-    # and xy-minor forms are single-device representations)
+    # sharded build: factored fallback (the per-offset form is a
+    # single-device representation)
     smooth._UNSHARDED_BUILD = False
     try:
         s = TransportSolver(cfg, backend="fmm")
@@ -124,11 +125,10 @@ def _gate_no_volume_gather(s, mesh, compiled):
 
 
 def test_sharded_factored_matvec_is_o_halo(factored_solver):
-    """Round-3 VERDICT item 3: the factored/stored-patch translate path
-    (the representation the 512^2+ production configs run) must move
-    O(halo), not re-gather the patch or near cache.  This gate FAILS on
-    the round-3 code (strided-window patch conv + sharded-axis
-    dynamic_slice chunking both lowered to volume all-gathers)."""
+    """The factored/stored-patch translate path (the sharded fallback for
+    levels that do not fit) must move O(halo), not re-gather the patch
+    or near cache: a strided-window patch conv or sharded-axis
+    dynamic_slice chunking would both lower to volume all-gathers."""
     s = factored_solver
     mesh = make_mesh()
     if mesh.devices.size < 2:
@@ -206,11 +206,11 @@ def test_sharded_virtual_patch_matvec_is_o_halo(factored_solver):
 
 
 def test_sharded_gmres_moves_halo_not_volume(sharded_matvec):
-    """Round-4 VERDICT item 5: the SOLVE-level collectives were ungated --
-    GMRES flattened the sharded field (reshape(-1) merges the sharded
-    dims), so every basis update re-gathered volume-sized operands (144
-    all-gathers x 8.6 MB/shard per 256^2 sharded solve).  The natural-
-    shape GMRES must emit only scalar/control all-gathers; CGS2
+    """The SOLVE-level collectives: a GMRES that flattens the sharded
+    field (reshape(-1) merges the sharded dims) re-gathers volume-sized
+    operands in every basis update (144 all-gathers x 8.6 MB/shard per
+    256^2 sharded solve).  The natural-shape GMRES must emit only
+    scalar/control all-gathers; CGS2
     reductions become all-reduces of (m+1,) scalars."""
     import jax
     from aniso_tpu.solver.gmres import gmres

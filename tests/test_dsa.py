@@ -82,7 +82,7 @@ def test_dsa_accelerates_scattering_dominated():
 
 
 def test_dsa_never_hurts_in_thick_cell_regime():
-    """Round-3 VERDICT item 9: on optically thick cells the raw
+    """On optically thick cells the raw
     continuum-consistent correction actively hurts (measured 43->67 at
     sigma_t*dx = 2.5); the cell-local tau-damping must make
     iterations(DSA) <= iterations(none) across the thick regime while
@@ -107,7 +107,7 @@ def test_dsa_never_hurts_in_thick_cell_regime():
 
 
 def test_dsa_accelerates_fmm_backend():
-    """VERDICT round-1 weak 7: DSA exercised with the FMM backend.
+    """DSA exercised with the FMM backend.
 
     Measured study (benchmarks/results_dsa.json, CPU f64): sigma_s=20
     iso: 24->12 iters at 32^2, 22->9 at 64^2; sigma_s=50: 59->26;

@@ -262,86 +262,6 @@ def test_m2l_translate_factored_chunked(monkeypatch):
     np.testing.assert_allclose(out2, ref, rtol=1e-12, atol=1e-12)
 
 
-def test_yminor_dense_orientation_matches_rowmajor(monkeypatch):
-    """The y-minor (m2, r, 27r, m2) dense orientation (production at
-    m2 >= 128, where it is byte-compact and layout-deterministic on TPU)
-    must produce the same operator as the row-major orientation.  The
-    lane-align threshold is shrunk so the leaf flips orientation at a
-    CPU-testable size."""
-    import jax.numpy as jnp
-    import aniso_tpu.fmm.smooth as S
-    from aniso_tpu.core.config import SolverConfig
-    from aniso_tpu.solver.operator import TransportSolver
-
-    def build():
-        cfg = SolverConfig(
-            domain_size=32, quad_rule=2, kernel_size=1, g=0.5,
-            sing_rule=4, np_cheb=3, dtype="float32",
-        )
-        s = TransportSolver(cfg, backend="fmm")
-        g = s.grid
-        sig = 8 * 0.5 * (1 - np.cos(2 * np.pi * g.nodes_x))
-        s.set_coeff(sig, sig + 0.2)
-        return s
-
-    rng = np.random.default_rng(5)
-    v = jnp.asarray(rng.standard_normal((32, 32, 4)), jnp.float32)
-
-    s_row = build()                        # m2 in {4, 8, 16} -> row-major
-    assert all(
-        b.ndim == 4 and b.shape[-1] != b.shape[0]
-        for lv, blocks in s_row._caches["m2l_E"].items()
-        if isinstance(blocks, tuple) for b in blocks
-    )
-    ref = np.asarray(s_row.apply_mode(0, v))
-
-    monkeypatch.setattr(S, "_DENSE_LANE_ALIGN", 8)
-    s_ym = build()                         # leaf m2=16 -> y-minor
-    assert any(
-        b.ndim == 4 and b.shape[-1] == b.shape[0]
-        for lv, blocks in s_ym._caches["m2l_E"].items()
-        if isinstance(blocks, tuple) for b in blocks
-    )
-    out = np.asarray(s_ym.apply_mode(0, v))
-    np.testing.assert_allclose(out, ref, rtol=2e-6, atol=1e-7)
-
-
-def test_flat_dense_orientation_matches_rowmajor(monkeypatch):
-    """The flat (m2, m2, P) small-level orientation + dot-form translate
-    (A/B apparatus behind ANISO_SMALL_DENSE_FLAT; the round-3 layout,
-    measured SLOWER than row-major on chip at 64^2 and 128^2 -- kept so
-    the A/B stays runnable) must produce the same operator."""
-    import jax.numpy as jnp
-    import aniso_tpu.fmm.smooth as S
-    from aniso_tpu.core.config import SolverConfig
-    from aniso_tpu.solver.operator import TransportSolver
-
-    def build():
-        cfg = SolverConfig(
-            domain_size=32, quad_rule=2, kernel_size=1, g=0.5,
-            sing_rule=4, np_cheb=3, dtype="float32",
-        )
-        s = TransportSolver(cfg, backend="fmm")
-        g = s.grid
-        sig = 8 * 0.5 * (1 - np.cos(2 * np.pi * g.nodes_x))
-        s.set_coeff(sig, sig + 0.2)
-        return s
-
-    rng = np.random.default_rng(7)
-    v = jnp.asarray(rng.standard_normal((32, 32, 4)), jnp.float32)
-    ref = np.asarray(build().apply_mode(0, v))
-
-    monkeypatch.setenv("ANISO_SMALL_DENSE_FLAT", "1")
-    s_flat = build()                       # m2 in {4, 8, 16}: all flat
-    assert any(
-        b.ndim == 3
-        for blocks in s_flat._caches["m2l_E"].values()
-        if isinstance(blocks, tuple) for b in blocks
-    )
-    out = np.asarray(s_flat.apply_mode(0, v))
-    np.testing.assert_allclose(out, ref, rtol=2e-6, atol=1e-7)
-
-
 def test_offsets_fine_E_matches_dense():
     """The per-offset virtual representation (fmm.smooth.
     build_m2l_offsets_fine + fmm.apply._m2l_translate_offsets) reproduces

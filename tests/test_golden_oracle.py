@@ -117,7 +117,7 @@ ORACLE128 = os.path.join(
 def test_fmm_solution_matches_reference_cli_128():
     """FMM backend at BASELINE config-2 scale (128^2, deg 3, HG g=0.5,
     singRule 8, np 4) vs the committed reference CLI output
-    benchmarks/oracle_128/result.csv (round-2 VERDICT item 7).
+    benchmarks/oracle_128/result.csv.
 
     Same tolerance rationale as the 64^2 gate: both solvers run rank-16
     black-box FMMs contributing ~1e-4 truncation each.

@@ -1,12 +1,12 @@
 """The wired hand-scheduled halo path (sharded_solver halo='shardmap').
 
-VERDICT round-4 item 8: parallel.halo's shard_map + ppermute near-field
+parallel.halo's shard_map + ppermute near-field
 exchange and the fine-level M2L parity-plane exchange, wired into
 `sharded_solver(..., halo='shardmap')`, must (a) produce the same
 corrected matvec as the production GSPMD path, and (b) move O(halo)
 bytes with the communication pattern pinned by the code, not by GSPMD
 heuristics (no volume all-gathers).  This is the staging ground for
-compute/communication overlap on real ICI (SURVEY section 7 stage 6).
+compute/communication overlap across cards (SURVEY section 7 stage 6).
 """
 
 import jax
@@ -20,18 +20,15 @@ from aniso_tpu.parallel.api import make_mesh, shard_field, sharded_solver
 from aniso_tpu.parallel.inspect import compiled_collective_stats
 
 
-def _build_solver(lane_align=None):
+def _build_solver():
     import aniso_tpu.fmm.smooth as smooth
 
     cfg = SolverConfig(
         domain_size=32, quad_rule=2, kernel_size=1, g=0.9,
         sing_rule=4, np_cheb=3, dtype="float32",
     )
-    saved = smooth._DENSE_LANE_ALIGN
     saved_xy = smooth._UNSHARDED_BUILD
-    if lane_align is not None:
-        smooth._DENSE_LANE_ALIGN = lane_align
-    # sharded build: 4D orientations only (xy-minor cannot shard)
+    # sharded build: evicted levels take the GSPMD-safe factored form
     smooth._UNSHARDED_BUILD = False
     try:
         s = TransportSolver(cfg, backend="fmm")
@@ -39,7 +36,6 @@ def _build_solver(lane_align=None):
         sig = 8 * 0.5 * (1 - np.cos(2 * np.pi * g.nodes_x))
         s.set_coeff(sig, sig + 0.2)
     finally:
-        smooth._DENSE_LANE_ALIGN = saved
         smooth._UNSHARDED_BUILD = saved_xy
     return s
 
@@ -79,24 +75,3 @@ def test_shardmap_halo_is_o_halo_and_pinned(wired):
     assert st.total_bytes() < mesh.devices.size * field_bytes, (
         st, mesh.devices.size * field_bytes,
     )
-
-
-def test_shardmap_halo_y_minor_orientation():
-    """The lane-aligned y-minor dense orientation (production 512^2 leaf)
-    takes its own shard_map branch; exercise it by shrinking the align
-    threshold so the 32^2 leaf stores y-minor."""
-    s = _build_solver(lane_align=8)
-    # leaf must actually be y-minor: (m2, r, 27r, m2)
-    leaf = s._tcfg.leaf_level
-    E0 = s._caches["m2l_E"][leaf][0]
-    assert E0.ndim == 4 and E0.shape[-1] == E0.shape[0]
-    mesh = make_mesh()
-    if mesh.devices.size < 2:
-        pytest.skip("needs a multi-device mesh")
-    u_np = np.random.default_rng(1).random((32, 32, 4)).astype(np.float32)
-    apply_g, caches_g, ms_g = sharded_solver(s, mesh)
-    apply_h, caches_h, ms_h = sharded_solver(s, mesh, halo="shardmap")
-    u = shard_field(mesh, jnp.asarray(u_np))
-    ref = np.asarray(apply_g(caches_g, ms_g[0], 0, u))
-    out = np.asarray(apply_h(caches_h, ms_h[0], 0, u))
-    assert np.linalg.norm(out - ref) / np.linalg.norm(ref) < 1e-6

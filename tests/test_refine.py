@@ -1,7 +1,7 @@
 """Mixed-precision iterative refinement (solver/refine.py).
 
-The reference solves in f64 to 1e-12 (main.cpp:141); on TPU the fast path
-is f32 with a ~1e-6 true-residual floor.  These tests check on CPU (where
+The reference solves in f64 to 1e-12 (main.cpp:141); the fast path here is
+f32 with a ~1e-6 true-residual floor.  These tests check on CPU (where
 f32 is genuine f32 and f64 genuine f64) that the refined solve drives the
 TRUE f64 residual below tolerances no plain f32 solve can reach.
 """
@@ -152,7 +152,7 @@ def test_stored_near_chunked_matches_unchunked(monkeypatch):
     """The chunked STORED-near_E branch (dynamic_slice of caches['near_E']
     along axis 4) -- the branch the production f32 512^2 solve takes, since
     its 765 MB near cache exceeds the temp cap -- must reproduce the
-    unchunked stored-E operator exactly (round-3 ADVICE item 3)."""
+    unchunked stored-E operator exactly."""
     import aniso_tpu.fmm.apply as A
 
     cfg = SolverConfig(
